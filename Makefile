@@ -2,7 +2,7 @@
 
 PY ?= python
 
-.PHONY: check check-tpu test test-tpu native dryrun golden clean
+.PHONY: check check-gpu test native dryrun golden clean
 
 native:
 	$(MAKE) -s -C chalametpir_tpu/native libchalametpir_native.so
@@ -22,12 +22,12 @@ golden:
 check: test dryrun
 	@echo "check: OK"
 
-# Real-TPU tier: the compiled-mode kernel assertions (tests/test_tpu_compiled.py)
-# on actual hardware — the analogue of the reference CI running its suite
-# with --features gpu (test_ci.yml:36-48).
-check-tpu: native
-	PIR_TEST_TPU=1 $(PY) -m pytest tests/ -m tpu -q
-	@echo "check-tpu: OK"
+# Chip tier: the compiled-mode assertions (tests/test_gpu_compiled.py) on a
+# GPU — the analogue of the reference CI running its suite with
+# --features gpu (test_ci.yml:36-48).
+check-gpu: native
+	PIR_TEST_GPU=1 $(PY) -m pytest tests/ -m gpu -q
+	@echo "check-gpu: OK"
 
 clean:
 	$(MAKE) -s -C chalametpir_tpu/native clean

@@ -1,4 +1,4 @@
-"""chalametpir_tpu — a TPU-native framework for single-server keyword
+"""chalametpir_tpu — a GPU framework for single-server keyword
 Private Information Retrieval (ChalametPIR: FrodoPIR + binary fuse filters).
 
 Public API mirrors the reference crates' surface

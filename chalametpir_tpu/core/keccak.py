@@ -12,7 +12,7 @@ Two engines live here:
 * a **batched numpy engine** that hashes millions of independent short
   messages at once by running the permutation across a (n, 25) uint64
   lane array — this is the host-side analogue of the SIMD/SPMD style the
-  rest of the framework uses on TPU;
+  rest of the framework uses on the device;
 * a **streaming single-instance engine** for the sequential XOF squeeze
   (seed -> matrix A expansion is one serial sponge stream and cannot be
   parallelised). The native C++ engine in `chalametpir_tpu.native`

@@ -8,10 +8,10 @@ Two derivation modes:
   chalametpir_common/src/matrix.rs:541-558). A single sponge stream
   cannot be parallelised, so this mode is host-bound on one core.
 
-* **ctr** (TPU-native): byte block i of the stream is
+* **ctr** (device default): byte block i of the stream is
   `TurboSHAKE128(seed || LE64(i))[:168]`. Blocks are independent, so the
   expansion runs batched on the host (vectorised numpy / native C++) or
-  entirely on the TPU (ops/prg_jax.py) — the server then never ships A
+  entirely on the device (ops/prg_jax.py) — the server then never ships A
   over the host link at all. Same cost per byte (one Keccak-p[1600,12]
   permutation per 168 bytes), same security argument (each block is an
   independent XOF output of a distinct message under the public seed);

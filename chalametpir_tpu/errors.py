@@ -1,10 +1,10 @@
-"""Typed exception hierarchy for the TPU-native ChalametPIR framework.
+"""Typed exception hierarchy for the ChalametPIR framework.
 
 Mirrors the reference's error enum (reference:
 chalametpir_common/src/error.rs:8-50) so that every failure mode a
 reference user relies on has a named equivalent here. The Vulkan-specific
-variants map onto a single `AcceleratorError` family since the TPU
-backend surfaces device failures through JAX/XLA instead.
+variants map onto a single `AcceleratorError` family since the device
+backend surfaces failures through JAX/XLA instead.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ class ChalametPIRError(Exception):
 
 
 class AcceleratorError(ChalametPIRError):
-    """A TPU/XLA device operation failed."""
+    """A device (JAX/XLA) operation failed, or the platform is unsupported."""
 
 
 # --- Matrix ---------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Protocol roles: the TPU-resident Server and the host-side Client."""
+"""Protocol roles: the device-resident Server and the Client."""

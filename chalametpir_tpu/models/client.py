@@ -1,11 +1,11 @@
-"""The PIR client: host-side, bit-exact with the reference wire protocol.
+"""The PIR client: bit-exact with the reference wire protocol.
 
 Equivalent of the reference Client (reference:
-chalametpir_client/src/client.rs:13-283). Stays on the host on purpose —
-the reference client targets browsers/WASM, so ours targets plain
-CPython + numpy with no device dependency; queries it produces are
-byte-compatible with any conforming server (including the Rust one) and
-vice versa.
+chalametpir_client/src/client.rs:13-283). Runs on plain CPython + numpy
+with no device dependency (the reference client targets browsers/WASM);
+where a GPU is present it can keep A on the device and run s . A there
+(ops/client_device.py). Queries it produces are byte-compatible with any
+conforming server (including the Rust one) and vice versa.
 """
 
 from __future__ import annotations
@@ -34,22 +34,6 @@ try:
     from ..native import engine as _native
 except Exception:  # pragma: no cover - native build unavailable
     _native = None
-
-
-# resident client A planes (4 int8 byte planes, 4*m*1774 B) switch to the
-# streaming engine past this HBM budget (v5e has 16 GB; the serving DB
-# usually co-tenants)
-RESIDENT_PLANES_MAX_BYTES = 8 << 30
-
-
-def _accelerator_present() -> bool:
-    """True when JAX has a non-CPU backend to run the query matvec on."""
-    try:
-        import jax
-
-        return jax.default_backend() != "cpu"
-    except Exception:  # pragma: no cover - no jax in a host-only deploy
-        return False
 
 
 @dataclass
@@ -126,13 +110,17 @@ class Client:
         (see core/prg.py; "stream" is reference-compatible).
 
         `device` controls where A lives and where s . A runs:
-        True -> TPU (in ctr mode A is generated on device and never
+        True -> the device (in ctr mode A is generated there and never
         crosses the host link; in stream mode the host XOF expands it once
-        and uploads); False -> host numpy/native; "auto" -> TPU whenever an
-        accelerator backend is present.
+        and uploads); False -> host numpy/native; "auto" -> the device
+        whenever the default JAX device is a GPU. A device failure raises.
+
+        In ctr mode the resident A planes (4 * m * K_PAD bytes) are used
+        when they fit half the device memory not yet in use; past that the
+        streaming engine regenerates A per batch in O(chunk) memory.
 
         prepared_queries > 0 runs FrodoPIR's offline query preprocessing
-        for that many future queries as part of setup (one batched MXU
+        for that many future queries as part of setup (one batched device
         matvec); query() then answers from the pool in O(m) time.
         auto_refill keeps the pool topped up from a background thread."""
         if len(seed) != SEED_BYTE_LEN:
@@ -140,7 +128,7 @@ class Client:
         # setup attribution (consumed by bench.py): a_expand_s is the wall
         # of the host XOF expansion (the dominant stream-mode step),
         # cpu_s this thread's CPU over the whole setup — wall >> cpu means
-        # the host was preempted (co-tenant / tunnel), not doing XOF work
+        # the thread waited (device work, other processes), not XOF work
         import time as _t
 
         from ..utils.telemetry import thread_rusage
@@ -170,73 +158,38 @@ class Client:
                     "PIR_CLIENT_MAX_A_BYTES or use prg_mode='ctr')"
                 )
 
-        auto = device == "auto"
-        if auto:
-            device = _accelerator_present()
-        a_host = None  # stream-mode host expansion, kept for the fallback
-        if device:
-            try:
-                from ..ops.client_device import DeviceQueryEngine
+        from ..ops import backend
 
-                m = filt.num_fingerprints
-                if prg_mode == "ctr":
-                    # resident A planes cost 4*m*1774 bytes of HBM; past
-                    # ~8 GB (2^21-class DBs) switch to the streaming
-                    # engine, which regenerates A per batch in O(chunk)
-                    if 4 * m * LWE_DIMENSION > RESIDENT_PLANES_MAX_BYTES:
-                        engine = DeviceQueryEngine.streaming_from_seed_ctr(seed, m)
-                    else:
-                        engine = DeviceQueryEngine.from_seed_ctr(seed, m)
+        if device == "auto":
+            device = backend.accelerator_present()
+        m = filt.num_fingerprints
+        if device:
+            from ..ops.client_device import K_PAD, DeviceQueryEngine
+
+            if prg_mode == "ctr":
+                budget = backend.device_memory_budget()
+                if budget is not None and 4 * m * K_PAD > budget:
+                    engine = DeviceQueryEngine.streaming_from_seed_ctr(seed, m)
                 else:
-                    t0 = _t.perf_counter()
-                    a_host = prg.expand_seed(
-                        LWE_DIMENSION, m, seed, mode=prg_mode, stats=stats
-                    )
-                    stats["a_expand_s"] = round(_t.perf_counter() - t0, 2)
-                    engine = DeviceQueryEngine.from_host_matrix(a_host)
-            except Exception:
-                # auto means best-effort: a device-side failure (e.g. HBM
-                # exhausted by a co-tenant server) falls back — resident
-                # ctr planes retry as the streaming engine, anything else
-                # drops to the host engine; explicit device=True raises
-                engine = None
-                if auto and prg_mode == "ctr":
-                    try:
-                        # streaming construction never touches the device;
-                        # probe it first so a dead device falls through to
-                        # the host engine instead of failing at query time
-                        import jax
-
-                        jax.block_until_ready(
-                            jax.device_put(np.zeros(8, np.int8))
-                        )
-                        engine = DeviceQueryEngine.streaming_from_seed_ctr(
-                            seed, filt.num_fingerprints
-                        )
-                    except Exception:
-                        engine = None
-                if engine is None:
-                    if not auto:
-                        raise
-                    device = False
-        if device:
+                    engine = DeviceQueryEngine.from_seed_ctr(seed, m)
+            else:
+                t0 = _t.perf_counter()
+                a_host = prg.expand_seed(
+                    LWE_DIMENSION, m, seed, mode=prg_mode, stats=stats
+                )
+                stats["a_expand_s"] = round(_t.perf_counter() - t0, 2)
+                engine = DeviceQueryEngine.from_host_matrix(a_host)
+                del a_host
             client = cls(
                 None, hint_mat_m, filt, device_engine=engine,
                 seed=seed, prg_mode=prg_mode,
             )
         else:
-            # stream-mode fallback: the multi-GB XOF expansion may have
-            # already succeeded before the device upload failed — reuse it
-            # instead of paying the most expensive setup step twice
-            if a_host is not None:
-                pub_mat_a = a_host
-            else:
-                t0 = _t.perf_counter()
-                pub_mat_a = prg.expand_seed(
-                    LWE_DIMENSION, filt.num_fingerprints, seed,
-                    mode=prg_mode, stats=stats,
-                )
-                stats["a_expand_s"] = round(_t.perf_counter() - t0, 2)
+            t0 = _t.perf_counter()
+            pub_mat_a = prg.expand_seed(
+                LWE_DIMENSION, m, seed, mode=prg_mode, stats=stats
+            )
+            stats["a_expand_s"] = round(_t.perf_counter() - t0, 2)
             client = cls(
                 pub_mat_a, hint_mat_m, filt, seed=seed, prg_mode=prg_mode
             )
@@ -258,7 +211,7 @@ class Client:
     def prepare_queries(self, count: int) -> None:
         """FrodoPIR offline query preprocessing (ia.cr/2022/981): compute
         `count` key-independent (b = s.A + e, c = s.M) pairs and pool them.
-        All `count` secrets ride one batched matvec, so A streams from HBM
+        All `count` secrets ride one batched matvec, so A streams from device memory
         once per batch; the host-side error sampling and s.M unblinding
         matvecs overlap the device dot and readback."""
         self._prepare_queries(count, record_stats=True)
@@ -281,8 +234,8 @@ class Client:
         stats: dict = {"host_s": round(t_host - t0, 3)}
         if b_dev is not None:
             # split the blocking fetch: residual device compute not hidden
-            # behind the host sampling vs the b-vector d2h readback (the
-            # dominant cost through a slow link: count x 4*k_pad bytes)
+            # behind the host sampling vs the b-vector d2h readback
+            # (count x 4*m_pad bytes)
             b_dev.block_until_ready()
             t_done = time.perf_counter()
             b_host = np.asarray(b_dev)
@@ -472,8 +425,8 @@ class Client:
 
     def query_batch(self, keys: list[bytes]) -> list[bytes]:
         """Build queries for several keys at once. Preprocessed pool
-        entries are used first; the remainder ride one batched MXU matvec
-        (A streams from HBM once per batch instead of once per key). Keys
+        entries are used first; the remainder ride one batched device matvec
+        (A streams from device memory once per batch instead of once per key). Keys
         whose indicator overflows are transparently retried with fresh
         randomness — bounded like the filter-construction retry loop
         (params.rs:10); the per-retry overflow odds are ~arity/2^b, so the

@@ -1,6 +1,12 @@
 """asyncio TCP PIR client (reference: chalametpir_client/examples/client.rs).
 
 Run: python -m chalametpir_tpu.net.client --key banana [--host ... --port ...]
+
+The client keeps A on the host by default (`--device host`): a JAX
+process reserves most of a GPU's memory when it first uses it, so a
+client started beside a server on the same card would fail for want of
+memory. `--device gpu` runs s . A on the GPU, for a client with a card
+of its own.
 """
 
 from __future__ import annotations
@@ -35,9 +41,10 @@ def _query_or_none(client: Client, key: bytes) -> bytes | None:
 
 async def fetch(
     host: str, port: int, keys: list[bytes], prg_mode: str = "stream",
-    device="auto", pool: int = 0,
+    device: bool | str = False, pool: int = 0,
 ) -> dict[bytes, bytes | None]:
-    """Fetch `keys` from a PIR server. pool > 0 runs FrodoPIR's offline
+    """Fetch `keys` from a PIR server. `device` is Client.setup's (False
+    keeps A on the host). pool > 0 runs FrodoPIR's offline
     query preprocessing for that many queries right after setup (one
     batched matvec), so the per-key online latency drops to the pooled
     path (~ms instead of one s.A matvec per key)."""
@@ -106,11 +113,15 @@ def main(argv=None):
     ap.add_argument("--pool", type=int, default=0, metavar="N",
                     help="precompute N query pairs after setup (FrodoPIR "
                          "offline phase); online per-key latency drops to ~ms")
+    ap.add_argument("--device", default="host", choices=("host", "gpu"),
+                    help="where A lives and s . A runs (default host: a "
+                         "server on the same card keeps its memory)")
     args = ap.parse_args(argv)
     keys = [k.encode() for k in args.key] or [b"banana"]
 
     results = asyncio.run(
-        fetch(args.host, args.port, keys, prg_mode=args.prg_mode, pool=args.pool)
+        fetch(args.host, args.port, keys, prg_mode=args.prg_mode,
+              device=args.device == "gpu", pool=args.pool)
     )
     for key, value in results.items():
         if value is None:

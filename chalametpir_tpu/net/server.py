@@ -9,9 +9,9 @@ of length-framed queries.
 Unlike the reference's per-connection tokio tasks (each running its own
 CPU respond), queries from ALL connections flow into one micro-batching
 dispatcher: whatever is queued when the device frees up is stacked into
-a single respond_batch call — one MXU matmul serves every concurrent
-client, which is exactly where the TPU respond kernel's throughput
-scales (batch Q costs barely more than Q=1).
+a single respond_batch call — one scan of the DB serves every
+concurrent client (below the tensor cores' ridge, batch Q costs barely
+more than Q=1).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ class BatchDispatcher:
         # pad every batch to max_batch rows on the jax backend: the device
         # respond compiles per batch SHAPE, and the micro-batches here are
         # whatever happened to be queued (1, 5, 17, ...) — unpadded, every
-        # new size would pay a fresh (remote) compile. A full-batch scan
+        # new size would pay a fresh compile. A full-batch scan
         # costs barely more than a single query (the DB scan dominates),
         # so padding buys one compiled shape for ~free. Zero-padded query
         # rows are exact: their responses are zero and get sliced off.
@@ -284,8 +284,8 @@ def main(argv=None):
                     help="skip setup and resume serving from a --save-state archive")
     ap.add_argument("--mesh", metavar="DATAxMODEL",
                     help="serve the DB sharded over a device mesh, e.g. "
-                         "'1x8' (fingerprint rows over 8 chips; respond "
-                         "psums over ICI). Requires the jax backend.")
+                         "'1x4' (fingerprint rows over 4 devices; respond "
+                         "psums across them). Requires the jax backend.")
     args = ap.parse_args(argv)
 
     if args.load_state and (args.random_db or args.save_state or args.mesh):
@@ -298,7 +298,7 @@ def main(argv=None):
     if args.mesh and args.save_state:
         # Server.save() on a mesh-sharded server gathers the planes and the
         # archive would silently resume as an UNSHARDED single-device server
-        # (possibly not fitting one device's HBM, and losing the sharded
+        # (possibly not fitting one device's memory, and losing the sharded
         # respond path). Refuse, mirroring the --load-state guard above.
         ap.error("--save-state cannot archive a --mesh-sharded server; "
                  "re-run setup with --mesh on restart instead")

@@ -1,25 +1,29 @@
-"""Device-resident client query engine: s . A on the MXU.
+"""Device-resident client query engine: s . A as int8 products.
 
 The client's dominant costs are (a) expanding the 32-byte seed into the
 (1774, m) public LWE matrix A (~8.4 GB at the 2^20 headline config) and
 (b) the per-query ternary matvec s . A. The reference does both on a
 many-core CPU (reference: chalametpir_client/src/client.rs:39-57,
-client.rs:106 + matrix.rs:541-558, 1031-1059); this host has one weak
-core, and a TPU sitting right there.
+client.rs:106 + matrix.rs:541-558, 1031-1059); here both run on the
+device.
 
-TPU design:
+Design:
 
 * A is stored as four biased int8 byte planes, planes[j] = ((A >> 8j)
   & 255) - 128 — same 4 B/element footprint as uint32, but each plane is
-  a native MXU operand.
-* In "ctr" PRG mode the planes are *generated on device* (Pallas Keccak,
-  ops/prg_jax.py) — client setup never ships A over the host link. ctr
-  A is fingerprint-major (core/prg.py), so the planes are laid out
-  (4, m, k) and generated in contiguous fingerprint-range slabs. In
-  "stream" mode (reference-interop) A is squeezed by the host XOF
-  row-major and uploaded once as (4, k, m) planes.
+  a native int8 GEMM operand. The planes are laid out (4, m, k_pad):
+  fingerprint-major, with the contraction dimension k = 1774 padded to
+  K_PAD (a multiple of 16) once at construction, so every query's batched
+  dot has a K-minor layout and an aligned contraction on both operands.
+  The padded columns meet zero signs and contribute nothing.
+* In "ctr" PRG mode the planes are *generated on device* (ops/prg_jax.py)
+  — client setup never copies A from the host. ctr A is fingerprint-major
+  (core/prg.py), so the planes are generated in contiguous
+  fingerprint-range slabs. In "stream" mode (reference-interop) A is
+  squeezed by the host XOF row-major, copied once per plane and
+  transposed on the device.
 * A query computes all four plane dots as one batched einsum over the
-  k = 1774 contraction and recombines mod 2^32 with the bias correction
+  contraction and recombines mod 2^32 with the bias correction
   128 * sum(s) per plane:
       s . A = sum_j (s . plane_j + 128 * sum(s)) << 8j   (mod 2^32)
   Exactness: each dot is int8 x int8 -> int32 with k <= 1774 terms, so
@@ -35,6 +39,8 @@ import numpy as np
 
 from ..params import LWE_DIMENSION
 
+K_PAD = -(-LWE_DIMENSION // 16) * 16  # 1776
+
 
 def _jax():
     try:
@@ -47,9 +53,11 @@ def _jax():
 
 
 def _recode_planes_jnp(slab_u32):
-    """(r, c) uint32 -> (4, r, c) int8 biased byte planes, on device."""
+    """(r, k) uint32 -> (4, r, K_PAD) int8 biased byte planes, on device
+    (the padded columns hold zero bytes; they meet zero signs)."""
     import jax.numpy as jnp
 
+    slab_u32 = jnp.pad(slab_u32, ((0, 0), (0, K_PAD - slab_u32.shape[1])))
     planes = []
     for j in range(4):
         p = (slab_u32 >> np.uint32(8 * j)) & np.uint32(255)
@@ -57,19 +65,25 @@ def _recode_planes_jnp(slab_u32):
     return jnp.stack(planes)
 
 
+def _signs(codes: np.ndarray, k: int) -> np.ndarray:
+    """(Q, k) ternary codes {0, 1, 2} -> (Q, K_PAD) int8 signs {0, 1, -1}."""
+    if codes.ndim != 2 or codes.shape[1] != k:
+        from ..errors import InvalidDimensionForVector
+
+        raise InvalidDimensionForVector()
+    signs = np.zeros((codes.shape[0], K_PAD), np.int8)
+    signs[:, :k] = np.where(codes == 2, -1, codes).astype(np.int8)
+    return signs
+
+
 class DeviceQueryEngine:
-    """Holds the A byte planes in HBM and runs s . A per query.
+    """Holds the A byte planes (4, m_pad, K_PAD) on the device and runs
+    s . A per query batch."""
 
-    layout "mk": planes (4, m_pad, k) — ctr mode, fingerprint-major.
-    layout "km": planes (4, k_pad, m) — stream mode, row-major upload.
-    """
-
-    def __init__(self, planes, k: int, m: int, layout: str, k_pad: int | None = None):
+    def __init__(self, planes, k: int, m: int):
         self._planes = planes
         self.k = k
         self.m = m
-        self.layout = layout
-        self.k_pad = k_pad or (planes.shape[1] if layout == "km" else k)
 
     # -- construction --------------------------------------------------------
 
@@ -95,27 +109,23 @@ class DeviceQueryEngine:
 
         # seed_words is an argument, not a closure capture — a captured
         # array is baked into the program, making every new seed a fresh
-        # (remote, slow) compile
+        # compile
         @partial(jax.jit, static_argnames=("ncols", "lwe_rows"))
         def gen(sw, blk0_words, offset, ncols, lwe_rows):
             return _recode_planes_jnp(
                 prg_jax.rows_from_blocks(sw, blk0_words, offset, ncols, lwe_rows)
             )
 
-        @partial(jax.jit, donate_argnums=0)
-        def write(buf, slab_planes, c0):
-            return jax.lax.dynamic_update_slice(buf, slab_planes, (0, c0, jnp.int32(0)))
-
         seed_words = prg_jax.seed_to_words(seed)
-        buf = jnp.zeros((4, m_pad, k), jnp.int8)
+        buf = jnp.zeros((4, m_pad, K_PAD), jnp.int8)
         for c0 in range(0, m, cols_per_step):
             blk0_words, offset = prg_jax.fp_block_start(c0, k)
             slab = gen(seed_words, blk0_words, offset, cols_per_step, k)
-            buf = write(buf, slab, jnp.int32(c0))
+            buf = _write_cols(buf, slab, jnp.int32(c0))
         # columns m..m_pad hold PRG output that must not contribute — they
         # are OUTPUT positions here, so callers slice [:m]; no masking
         # needed on the contraction.
-        return cls(buf, k, m, "mk")
+        return cls(buf, k, m)
 
     @classmethod
     def streaming_from_seed_ctr(
@@ -123,27 +133,28 @@ class DeviceQueryEngine:
     ) -> "StreamingQueryEngine":
         """ctr-mode engine that never materialises A: each matvec batch
         regenerates A in fingerprint slabs and folds the dots chunk by
-        chunk — O(cols_per_step) HBM at ANY m. Above ~2^21 entries the
-        resident planes (4 * m * 1774 B) no longer fit one chip's HBM;
-        this engine trades per-batch Keccak regeneration for that
-        residency, so the offline prepare path stays on the MXU at
-        2^23-class scale."""
+        chunk — O(cols_per_step) device memory at ANY m. Used when the
+        resident planes (4 * m * K_PAD B) exceed the device memory
+        budget; trades per-batch Keccak regeneration for that residency."""
         return StreamingQueryEngine(seed, m, cols_per_step)
 
     @classmethod
     def from_host_matrix(cls, a_host: np.ndarray) -> "DeviceQueryEngine":
-        """Upload a host-expanded A (stream PRG mode / interop)."""
+        """Upload a host-expanded (k, m) A (stream PRG mode / interop):
+        one byte plane at a time, transposed to (m, K_PAD) on the device."""
         from ..utils.compile_cache import enable_compile_cache
 
         enable_compile_cache()
         jax = _jax()
+        import jax.numpy as jnp
 
         k, m = a_host.shape
-        planes_host = np.empty((4, k, m), np.int8)
+        buf = jnp.zeros((4, m, K_PAD), jnp.int8)
         for j in range(4):
             p = (a_host >> np.uint32(8 * j)).astype(np.uint8)
-            planes_host[j] = (p.astype(np.int16) - 128).astype(np.int8)
-        return cls(jax.device_put(planes_host), k, m, "km")
+            plane = (p.astype(np.int16) - 128).astype(np.int8)
+            buf = _write_plane_transposed(buf, jax.device_put(plane), j)
+        return cls(buf, k, m)
 
     # -- query ---------------------------------------------------------------
 
@@ -157,9 +168,9 @@ class DeviceQueryEngine:
 
     def matvec_batch(self, codes: np.ndarray) -> np.ndarray:
         """(Q, k) ternary codes -> (Q, m) uint32; all Q secrets ride one
-        batched einsum (the A planes stream from HBM once per batch). In
-        the "mk" layout the device result carries m_pad output columns of
-        PRG padding — sliced off here."""
+        batched einsum (the A planes stream from device memory once per
+        batch). The device result carries m_pad output columns of PRG
+        padding — sliced off here."""
         return np.asarray(self.matvec_batch_async(codes))[:, : self.m].astype(
             np.uint32
         )
@@ -170,20 +181,13 @@ class DeviceQueryEngine:
         unblinding matvec) with the device dot and the d2h readback."""
         jax = _jax()
 
-        if codes.ndim != 2 or codes.shape[1] != self.k:
-            from ..errors import InvalidDimensionForVector
-
-            raise InvalidDimensionForVector()
-        q = codes.shape[0]
-        signs = np.zeros((q, self.k_pad), np.int8)
-        signs[:, : self.k] = np.where(codes == 2, -1, codes).astype(np.int8)
-        if self.layout == "mk":
-            return _ternary_planes_matvec_mk(jax.device_put(signs), self._planes)
-        return _ternary_planes_matvec_km(jax.device_put(signs), self._planes)
+        signs = _signs(codes, self.k)
+        return _jit_of("matvec", _matvec_impl)(jax.device_put(signs), self._planes)
 
 
 class StreamingQueryEngine:
-    """Drop-in for DeviceQueryEngine when A's planes exceed HBM: s . A is
+    """Drop-in for DeviceQueryEngine when A's planes exceed the device
+    memory budget: s . A is
     computed against on-the-fly ctr slabs of A (fingerprint-major), one
     `cols_per_step` chunk per device call. Same matvec_batch* surface."""
 
@@ -194,9 +198,7 @@ class StreamingQueryEngine:
         from . import prg_jax
 
         self.k = LWE_DIMENSION
-        self.k_pad = self.k
         self.m = m
-        self.layout = "streaming"
         self._seed_words = prg_jax.seed_to_words(seed)
         self._step = cols_per_step
 
@@ -220,12 +222,8 @@ class StreamingQueryEngine:
 
         from . import prg_jax
 
-        if codes.ndim != 2 or codes.shape[1] != self.k:
-            from ..errors import InvalidDimensionForVector
-
-            raise InvalidDimensionForVector()
+        signs_dev = jax.device_put(_signs(codes, self.k))
         q = codes.shape[0]
-        signs_dev = jax.device_put(np.where(codes == 2, -1, codes).astype(np.int8))
         n_steps = -(-self.m // self._step)
         out = jnp.zeros((q, n_steps * self._step), jnp.uint32)
         for c0 in range(0, self.m, self._step):
@@ -255,13 +253,8 @@ def _streaming_fold(out, sw, blk0_words, offset, signs, c0, *, ncols, lwe_rows):
         def fold(out, sw, blk0_words, offset, signs, c0, ncols, lwe_rows):
             planes = _recode_planes_jnp(
                 prg_jax.rows_from_blocks(sw, blk0_words, offset, ncols, lwe_rows)
-            )  # (4, ncols, k)
-            qn, k = signs.shape
-            s_mat = jnp.broadcast_to(signs[None, :, :], (4, qn, k))
-            dots = jnp.einsum(
-                "bqk,bnk->bqn", s_mat, planes, preferred_element_type=jnp.int32
-            )
-            part = _combine_plane_dots(dots, signs)  # (q, ncols) uint32
+            )  # (4, ncols, K_PAD)
+            part = _matvec_impl(signs, planes)  # (q, ncols) uint32
             return jax.lax.dynamic_update_slice(out, part, (jnp.int32(0), c0))
 
         fn = _streaming_fold_jit["fold"] = fold
@@ -280,44 +273,49 @@ def _combine_plane_dots(dots, signs):
     return acc
 
 
-def _matvec_km_impl(signs, planes):
+def _matvec_impl(signs, planes):
     import jax.numpy as jnp
 
     q, k = signs.shape
     s_mat = jnp.broadcast_to(signs[None, :, :], (4, q, k))
-    dots = jnp.einsum(
-        "bqk,bkm->bqm", s_mat, planes, preferred_element_type=jnp.int32
-    )
-    return _combine_plane_dots(dots, signs)
-
-
-def _matvec_mk_impl(signs, planes):
-    import jax.numpy as jnp
-
-    q, k = signs.shape
-    s_mat = jnp.broadcast_to(signs[None, :, :], (4, q, k))
-    # planes are (4, m, k): contraction over the minor dim of both — the
-    # MXU takes transposed operands natively
+    # planes are (4, m, K_PAD): the contraction is the minor dim of both
+    # operands
     dots = jnp.einsum(
         "bqk,bmk->bqm", s_mat, planes, preferred_element_type=jnp.int32
     )
     return _combine_plane_dots(dots, signs)
 
 
+def _write_cols(buf, slab_planes, c0):
+    """Donated write of a (4, ncols, K_PAD) slab at fingerprint c0."""
+    import jax.numpy as jnp
+
+    def impl(buf, slab_planes, c0):
+        return _jax().lax.dynamic_update_slice(buf, slab_planes, (0, c0, jnp.int32(0)))
+
+    return _jit_of("write_cols", impl, donate_argnums=0)(buf, slab_planes, c0)
+
+
+def _write_plane_transposed(buf, plane_km, j: int):
+    """Donated write of one (k, m) byte plane as buf[j, :, :k]."""
+    import jax.numpy as jnp
+
+    def impl(buf, plane_km, j):
+        k = plane_km.shape[0]
+        mk = jnp.pad(plane_km.T, ((0, 0), (0, K_PAD - k)))
+        return _jax().lax.dynamic_update_slice(
+            buf, mk[None], (j, jnp.int32(0), jnp.int32(0))
+        )
+
+    return _jit_of("write_plane", impl, donate_argnums=0)(buf, plane_km, jnp.int32(j))
+
+
 _jitted = {}
 
 
-def _jit_of(name, impl):
+def _jit_of(name, impl, **jit_kw):
     fn = _jitted.get(name)
     if fn is None:
         # jit lazily so importing this module never initialises a device
-        fn = _jitted[name] = _jax().jit(impl)
+        fn = _jitted[name] = _jax().jit(impl, **jit_kw)
     return fn
-
-
-def _ternary_planes_matvec_km(signs, planes):
-    return _jit_of("km", _matvec_km_impl)(signs, planes)
-
-
-def _ternary_planes_matvec_mk(signs, planes):
-    return _jit_of("mk", _matvec_mk_impl)(signs, planes)

@@ -1,17 +1,17 @@
 """Balanced base-256 digit decomposition — the bridge from Z_{2^32}
-arithmetic to the TPU's int8 MXU. Fills the role of the reference's
-wrapping u32 arithmetic core (reference:
+arithmetic to int8 tensor-core products. Fills the role of the
+reference's wrapping u32 arithmetic core (reference:
 chalametpir_common/src/matrix.rs:1031-1059 matmul, matrix.rs:328-485
-respond matvec) with a representation the MXU executes natively.
+respond matvec) with a representation the tensor cores execute natively.
 
-The TPU has no 32-bit integer systolic path, but its MXU multiplies int8
-at ~2x bf16 rate with exact int32 accumulation, and XLA integer overflow
-wraps two's-complement (verified on v5e). A u32 value x is therefore
-recoded into four *balanced* digits c_i in [-128, 127] with
+The tensor cores have no 32-bit integer product, but they multiply int8
+at twice the bf16 rate with exact int32 accumulation, and XLA integer
+overflow wraps two's-complement. A u32 value x is therefore recoded into
+four *balanced* digits c_i in [-128, 127] with
 
     x == sum_i c_i * 256^i  (mod 2^32),
 
-so a mod-2^32 matrix product becomes a handful of int8 MXU products whose
+so a mod-2^32 matrix product becomes a handful of int8 products whose
 int32 partials are shifted and re-summed; every dropped carry is a
 multiple of 2^32 and vanishes. Balanced (signed) digits avoid the bias
 corrections an unsigned 0..255 decomposition would need.

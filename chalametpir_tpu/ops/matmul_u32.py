@@ -1,14 +1,15 @@
-"""Exact mod-2^32 matrix products on the MXU via balanced int8 digits.
+"""Exact mod-2^32 matrix products as int8 GEMMs via balanced digits.
 
 Replaces the reference's rayon CPU matmul and Vulkan mat_x_mat shader
 (reference: chalametpir_common/src/matrix.rs:1040-1059,
-chalametpir_server/src/shaders/mat_x_mat.glsl) with int8 MXU dots:
+chalametpir_server/src/shaders/mat_x_mat.glsl) with int8 dots:
 
     A (R,K) u32, D (K,C) u32 with D < 2^14:
     M = sum_{i<4, j<2, i+j<=3} (A_i . D_j) << 8(i+j)   (mod 2^32)
 
 int32 accumulator wrap-around is harmless — every lost bit is a
-multiple of 2^32 (verified empirically on TPU v5e and CPU XLA).
+multiple of 2^32 (the tests and chip_smoke.py check it against the
+uint64 oracle).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def digit_matmul_accumulate(acc, a_u32, d0, d1):
     """acc (R,C) int32 += A_chunk (R,Kc) u32 . [d0|d1] (Kc,C) int8, mod 2^32.
 
     The chunked form lets the caller stream A from the host XOF without
-    ever materialising the full (R, K) matrix in HBM.
+    ever materialising the full (R, K) matrix on the device.
     """
     ad = recode_u32_jnp(a_u32)  # (4, R, Kc) int8
     for i in range(NUM_U32_DIGITS):

@@ -1,16 +1,16 @@
 """Bit-packed DB layouts for the bandwidth-bound respond scan. Fills
 the role of the reference's row_wise_compress serving layout (reference:
 chalametpir_common/src/matrix.rs:98-205, consumed by the respond loop
-matrix.rs:328-485) with planes shaped for MXU operands instead of CPU
-word-unpacking.
+matrix.rs:328-485) with planes shaped for int8 GEMM operands instead of
+CPU word-unpacking.
 
 The two-int8-digit-plane layout (ops/digits.py) costs 2 bytes per DB
 element. But an element is only b <= 14 bits, and for the large-DB
 regimes that matter (b <= 10 once n >= ~2^18) most of the second digit
-plane is air. This module defines a tighter, TPU-friendly split:
+plane is air. This module defines a tighter split:
 
     element el < 2^b:   el = (lo - 128) + 128 + 256 * hi
-      lo_biased = (el & 255) - 128   -> full int8 plane (MXU operand)
+      lo_biased = (el & 255) - 128   -> full int8 plane (GEMM operand)
       hi        = el >> 8            -> tiny values, bit-packed:
                      b <= 8 : hi == 0, plane omitted        (1.00 B/elem)
                      b == 9 : hi in {0,1},   8 per byte     (1.125 B/elem)
@@ -24,9 +24,9 @@ minimal; the bias is undone with one scalar per query digit:
     sum_k q_i[k] * el[k,c] = sum_k q_i[k] * (el[k,c] - 128)
                            + 128 * sum_k q_i[k]            (per-digit scalar)
 
-The Pallas respond kernel (ops/respond_pallas.py) streams lo_biased and
-packed-hi tiles from HBM, unpacks hi in VMEM with a couple of VPU ops,
-and keeps both dots on the MXU.
+The Triton respond scan (ops/respond_pallas.py) streams lo_biased and
+packed-hi tiles from device memory, unpacks hi in registers with a shift
+and a mask, and runs both dots on the tensor cores.
 
 Hi-plane packing is **column-block interleaved** — field j of packed
 word t holds logical column j*pc + t (pc = packed words per row) — so
@@ -35,8 +35,8 @@ blocks along columns) restores natural column order with no gather.
 This is the ONE packed layout in the framework: pack_db here, the numpy
 fallback and the native build_packed_planes in
 ops/respond_pallas.build_pallas_db all emit it (build_pallas_db
-additionally pads columns to the 128-lane boundary before packing, so
-its pc is computed from the padded width).
+additionally pads columns to COL_ALIGN before packing, so its pc is
+computed from the padded width).
 
 Note the bias trick uses `el & 255`, not a balanced digit, so `hi` here
 is the plain high byte — different from digits.db_digit_planes_np.

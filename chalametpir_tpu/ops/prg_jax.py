@@ -1,15 +1,16 @@
-"""On-device ctr-mode TurboSHAKE128: the LWE matrix A never leaves the TPU.
+"""On-device ctr-mode TurboSHAKE128: the LWE matrix A is generated on
+the device and never crosses the host link.
 
 Keccak-p[1600,12] vectorised across independent counter blocks, with each
-64-bit lane emulated as a (lo, hi) uint32 pair (the TPU VPU has no u64).
-Pure jnp — the permutation is one long elementwise chain that XLA fuses;
-there is nothing for a hand-written kernel to beat here, the op is
-VPU-throughput-bound by construction.
+64-bit lane emulated as a (lo, hi) uint32 pair (jnp uint64 needs the x64
+flag). Pure jnp: the permutation is one long elementwise chain that XLA
+fuses into one kernel per round, so no hand-written kernel is needed.
 
-Used by the server's `prg_mode="ctr"` setup path: with A generated
-in-HBM, setup's only host->device traffic is the packed DB itself.
-Block semantics match core/prg.py ctr mode bit-for-bit (asserted in
-tests): block i = TurboSHAKE128(seed || LE64(i))[:168].
+Used by the server's `prg_mode="ctr"` setup path and the device client
+engines: with A generated on device, setup's only host->device traffic
+is the packed DB itself. Block semantics match core/prg.py ctr mode
+bit-for-bit (asserted in tests): block i = TurboSHAKE128(seed ||
+LE64(i))[:168].
 """
 
 from __future__ import annotations
@@ -131,84 +132,6 @@ def seed_to_words(seed: bytes) -> jnp.ndarray:
     return jnp.asarray(np.frombuffer(seed, "<u4"))
 
 
-# ---------------------------------------------------------------------------
-# Pallas kernel: the whole 12-round permutation unrolled in vector
-# registers. The XLA fori_loop version above is the portable reference,
-# but it round-trips all 50 state buffers through HBM every round; the
-# kernel keeps the state resident and only writes the 168-byte outputs.
-# ---------------------------------------------------------------------------
-
-_TILE = 2048  # ctr blocks per grid step; state = 50 x (16,128) u32 vregs
-
-
-def _ctr_keccak_kernel(rc_ref, seed_ref, blk0_ref, out_ref):
-    import jax.experimental.pallas as pl
-
-    shape = (_TILE // 128, 128)
-    step = pl.program_id(0)
-    lin = (
-        jax.lax.broadcasted_iota(_U32, shape, 0) * np.uint32(128)
-        + jax.lax.broadcasted_iota(_U32, shape, 1)
-        + step.astype(_U32) * np.uint32(_TILE)
-    )
-    base_lo = blk0_ref[0]
-    base_hi = blk0_ref[1]
-    ctr_lo = base_lo + lin
-    carry = (ctr_lo < base_lo).astype(_U32)
-    ctr_hi = base_hi + carry
-
-    zero = jnp.zeros(shape, _U32)
-    lo = [zero] * 25
-    hi = [zero] * 25
-    for lane in range(4):
-        lo[lane] = jnp.full(shape, seed_ref[2 * lane], _U32)
-        hi[lane] = jnp.full(shape, seed_ref[2 * lane + 1], _U32)
-    lo[4] = ctr_lo
-    hi[4] = ctr_hi
-    lo[5] = jnp.full(shape, np.uint32(0x1F), _U32)
-    hi[20] = jnp.full(shape, np.uint32(0x80000000), _U32)
-
-    # one round per loop step (round constants indexed from SMEM): a fully
-    # unrolled permutation is ~12x the Mosaic program and takes minutes to
-    # compile for zero measured runtime win
-    def round_body(r, state):
-        lo, hi = state
-        lo, hi = _round(list(lo), list(hi), rc_ref[r, 0], rc_ref[r, 1])
-        return tuple(lo), tuple(hi)
-
-    lo, hi = jax.lax.fori_loop(0, 12, round_body, (tuple(lo), tuple(hi)))
-
-    for lane in range(RATE // 8):
-        out_ref[2 * lane, :, :] = lo[lane]
-        out_ref[2 * lane + 1, :, :] = hi[lane]
-
-
-@partial(jax.jit, static_argnames=("nblocks",))
-def ctr_blocks_pallas(seed_words, blk0_words, nblocks: int):
-    """(nblocks_padded, 42) uint32 via the Pallas kernel; the caller slices
-    to nblocks. Word layout matches ctr_blocks_u32."""
-    import jax.experimental.pallas as pl
-    import jax.experimental.pallas.tpu as pltpu
-
-    grid_n = -(-nblocks // _TILE)
-    rows = _TILE // 128
-    out = pl.pallas_call(
-        _ctr_keccak_kernel,
-        grid=(grid_n,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((42, rows, 128), lambda i: (0, i, 0)),
-        out_shape=jax.ShapeDtypeStruct((42, grid_n * rows, 128), _U32),
-        interpret=jax.default_backend() == "cpu",
-    )(jnp.asarray(_RC12), seed_words, blk0_words)
-    # (42, G*rows, 128) -> block-major (nblocks, 42)
-    words = jnp.swapaxes(out.reshape(42, grid_n * _TILE), 0, 1)
-    return words
-
-
 def rows_from_blocks(seed_words, blk0_words, offset, nrows: int, cols: int):
     """(nrows, cols) uint32 slab of the ctr-mode A matrix, traceable form:
     the caller supplies the starting block (as two uint32 words) and the
@@ -217,12 +140,7 @@ def rows_from_blocks(seed_words, blk0_words, offset, nrows: int, cols: int):
     # fixed block count for any alignment, so repeated row slabs of the
     # same size share one compilation
     nblocks = nelems * 4 // RATE + 2
-    if jax.default_backend() == "cpu":
-        # the Pallas interpreter walks ~2000 vector ops per permutation in
-        # Python; the XLA fori_loop version is the right CPU engine
-        words = ctr_blocks_u32(seed_words, blk0_words, nblocks).reshape(-1)
-    else:
-        words = ctr_blocks_pallas(seed_words, blk0_words, nblocks).reshape(-1)
+    words = ctr_blocks_u32(seed_words, blk0_words, nblocks).reshape(-1)
     return jax.lax.dynamic_slice(words, (offset,), (nelems,)).reshape(nrows, cols)
 
 

@@ -1,18 +1,20 @@
 """Online respond kernel: encrypted query x encoded DB, mod 2^32.
 
-This is the protocol's north-star hot path (reference:
+This is the protocol's hot path (reference:
 chalametpir_common/src/matrix.rs:328-485 — the rayon
-row_vector_x_compressed_transposed_matrix). The TPU design differs from
-the CPU one on purpose: instead of bit-unpacking a compressed DB on the
-fly, the DB lives in HBM as two int8 digit planes (2 bytes per element,
-see ops/digits.py) and each query's four balanced digits ride the MXU:
+row_vector_x_compressed_transposed_matrix). The device design differs
+from the CPU one on purpose: instead of bit-unpacking a compressed DB on
+the fly, the DB lives in device memory as two int8 digit planes (2 bytes
+per element, see ops/digits.py) and each query's four balanced digits
+are int8 operands of XLA's GEMMs:
 
     out[c] = sum_k q[k] * D[k, c]
            = sum_{i<4} 2^{8i} (q_i . D_0)[c] + sum_{i<3} 2^{8(i+1)} (q_i . D_1)[c]
 
 A batch of Q queries is one (4Q, m) x (m, C) int8 matmul — batching is
-free until the MXU saturates, which is the whole point of serving PIR
-from a matrix unit.
+nearly free until the tensor cores, not memory, bound the scan. The
+packed layout (ops/respond_pallas.py) reads fewer bytes per element and
+serves the large-DB regimes; this path serves b > 12.
 """
 
 from __future__ import annotations

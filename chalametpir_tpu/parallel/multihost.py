@@ -1,26 +1,28 @@
 """Multi-host (multi-process) serving scaffold.
 
 The single-process mesh path (`parallel.sharding`) shards the encoded DB
-over the chips one process controls. JAX's multi-controller runtime
+over the devices one process controls. JAX's multi-controller runtime
 extends the exact same program across hosts: every process runs the same
 code, `jax.distributed.initialize` wires the coordination service, and
 the `Mesh` simply spans all processes' devices — the `psum`s in the hint
-and respond kernels then ride ICI within a host and DCN across hosts,
-with XLA choosing the collective implementation. The reference has no
+and respond kernels then run as collectives across hosts (NCCL on GPU
+hosts), with XLA choosing the implementation. The reference has no
 multi-node story at all (SURVEY.md section 2: rayon threads + one Vulkan
 device), so this subsystem is exceed-parity.
 
 Deployment modes:
 
-* **TPU pod slice** — every worker calls `initialize()` with no
-  arguments (the TPU runtime autodetects coordinator/topology), then
-  builds `mesh = make_multihost_mesh(model=jax.device_count())` and runs
-  `Server.setup(..., mesh=mesh)` with identical inputs on every worker.
+* **GPU hosts** — every process calls `initialize()` with the
+  coordinator's `host:port`, the process count and its own process id
+  (nothing on a plain GPU host tells JAX of a cluster, so all three are
+  required), then builds `mesh = make_multihost_mesh(model=
+  jax.device_count())` and runs `Server.setup(..., mesh=mesh)` with
+  identical inputs on every process.
 * **CPU scaffold (tested here)** — N processes with virtual CPU devices
   and explicit coordinator/process ids; cross-process collectives run on
   gloo. `tests/test_multihost.py` drives the full setup+respond protocol
-  over two processes this way, which is exactly the program a pod would
-  run (only the collective transport differs).
+  over two processes this way, which is exactly the program a GPU
+  cluster would run (only the collective transport differs).
 
 Determinism contract (same as any SPMD jax program): every process must
 call `Server.setup` with byte-identical inputs (db, seed, arity, rng
@@ -41,9 +43,9 @@ def initialize(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Join the multi-controller runtime. On TPU pods call with no
-    arguments (autodetected); on CPU/GPU clusters pass the coordinator
-    host:port and this process's id. Idempotent per process."""
+    """Join the multi-controller runtime: pass the coordinator host:port,
+    the process count and this process's id (on GPU and CPU hosts JAX
+    cannot detect them). Idempotent per process."""
     import jax
 
     is_init = getattr(jax.distributed, "is_initialized", None)
@@ -55,8 +57,7 @@ def initialize(
         # silently dropping these would fall through to autodetection —
         # on a CPU cluster that means a surprise single-process runtime
         raise ValueError(
-            "process_id/num_processes require coordinator_address (on TPU "
-            "pods pass no arguments at all; autodetection covers all three)"
+            "process_id/num_processes require coordinator_address"
         )
     kwargs = {}
     if coordinator_address is not None:
@@ -103,8 +104,7 @@ def warmup_collectives(timeout_s: float = 240.0) -> None:
     device clique, so every later hint/respond/broadcast collective
     reuses it no matter how far the compile times drift.
 
-    No-op in a single-process runtime. On TPU pods the barrier still
-    aligns the processes; the warmup reduction rides ICI/DCN."""
+    No-op in a single-process runtime."""
     import jax
 
     if jax.process_count() == 1:

@@ -1,17 +1,15 @@
 """Sharded PIR serving over a jax.sharding.Mesh.
 
 The reference has no multi-device story (its parallelism is rayon
-threads + one Vulkan device; SURVEY.md section 2). The TPU-native scaling
-design:
+threads + one Vulkan device; SURVEY.md section 2). The scaling design:
 
 * **model axis** — the fingerprint dimension `m` of the encoded DB is
-  sharded across chips (a DB too big for one chip's HBM, e.g. the 2^23
-  x 1 kB config, splits its digit planes row-wise). Each chip computes a
-  partial (Q, C) int32 product over its local rows; a `psum` over ICI
-  reduces partials. int32 psum wraps two's-complement, so the reduction
-  is exact mod 2^32.
-* **data axis** — a batch of queries is sharded across chips; each query
-  subset rides the same local DB shard.
+  sharded across devices (a DB too big for one device splits its planes
+  row-wise). Each device computes a partial (Q, C) int32 product over its
+  local rows; a `psum` (NCCL on GPUs) reduces partials. int32 psum wraps
+  two's-complement, so the reduction is exact mod 2^32.
+* **data axis** — a batch of queries is sharded across devices; each
+  query subset rides the same local DB shard.
 
 The same mesh serves setup: A row blocks are replicated over `data`,
 their columns (= m) sharded over `model`, and the hint partials psum'd.
@@ -111,7 +109,7 @@ def sharded_respond_fn(mesh: Mesh):
 def build_sharded_pallas_db(mesh: Mesh, mat: np.ndarray, mat_elem_bit_len: int):
     """Pack the encoded DB and place its planes row-sharded over `model`
     (replicated over `data`). The fingerprint dimension is padded to whole
-    tiles per shard so the Pallas grid is uniform on every chip."""
+    ROW_ALIGN blocks per shard so every shard's scan has whole K blocks."""
     from ..ops import respond_pallas
 
     model = mesh.shape["model"]
@@ -119,36 +117,23 @@ def build_sharded_pallas_db(mesh: Mesh, mat: np.ndarray, mat_elem_bit_len: int):
     return respond_pallas.build_pallas_db(
         mat,
         mat_elem_bit_len,
-        m_align=model * respond_pallas.DEFAULT_TILE_K,
+        m_align=model * respond_pallas.ROW_ALIGN,
         sharding=sharding,
     )
 
 
-def _packed_partial_i32(queries_local, lo_local, hi_local, db):
+def _packed_partial_i32(queries_local, lo_local, hi_local, db, path=None):
     """Local-shard packed respond partial -> (Q, c) int32 (pre-psum).
 
     Everything downstream of the dots is linear in the DB rows, so
     combining locally and psum'ing the int32 accumulator is exact."""
-    from ..ops import respond_pallas
-    from ..ops.packed import hi_pack_factor
+    from ..ops import backend, respond_pallas
 
-    interpret = jax.default_backend() == "cpu"
-    q = queries_local.shape[0]
-    qd, sums = respond_pallas._prepare_query_digits(
-        queries_local, lo_local.shape[0]
-    )
-    if hi_local is None:
-        out_lo = respond_pallas._run_lo_only(qd, lo_local, db.tile_k, interpret)
-        out_hi = None
-    else:
-        pack = hi_pack_factor(db.mat_elem_bit_len)
-        bits = 8 // pack if pack > 1 else 8
-        out_lo, out_hi = respond_pallas._run_with_hi(
-            qd, lo_local, hi_local, db.tile_k, pack, bits, interpret
-        )
-    return respond_pallas._combine(out_lo, out_hi, sums, q, db.num_cols).astype(
-        jnp.int32
-    )
+    return respond_pallas.respond_packed_core(
+        queries_local, lo_local, hi_local, db.mat_elem_bit_len, db.num_cols,
+        path or backend.respond_path(queries_local.shape[0]),
+        backend.interpret(),
+    ).astype(jnp.int32)
 
 
 def _sharded_packed_fn(mesh: Mesh, db, lead_specs: tuple, body, out_specs=P(None, None)):
@@ -197,29 +182,28 @@ def sharded_hint_packed_fn(mesh: Mesh, db):
     'queries' replicated over `data`, columns sharded over `model`."""
 
     def body(a_block, lo, hi):
-        return _packed_partial_i32(a_block, lo, hi, db)
+        return _packed_partial_i32(a_block, lo, hi, db, path="xla")
 
     return _sharded_packed_fn(mesh, db, (P(None, "model"),), body)
 
 
-def _sharded_chunk_rows(m_local: int, tile_k: int) -> int:
-    """Rows per hint-fold chunk on one shard: a multiple of tile_k that
+def _sharded_chunk_rows(m_local: int, align: int) -> int:
+    """Rows per hint-fold chunk on one shard: a multiple of `align` that
     divides m_local exactly (the fold slices fixed windows at j*cc — an
-    overhang would re-read rows, and a non-tile-multiple cc would
-    silently drop cc % tile_k rows from the Pallas grid), targeting
-    ~<= 2^17 rows. m_local = t * tile_k by construction
-    (build_sharded_pallas_db aligns m_pad to model * tile_k); the largest
-    divisor of t within the target is chosen, and q = 1 always works."""
-    if m_local % tile_k != 0:
+    overhang would re-read rows), targeting ~<= 2^17 rows. m_local = t *
+    align by construction (build_sharded_pallas_db aligns m_pad to model
+    * ROW_ALIGN); the largest divisor of t within the target is chosen,
+    and 1 always works."""
+    if m_local % align != 0:
         raise AssertionError(
-            f"sharded planes misaligned: m_local={m_local} tile_k={tile_k}"
+            f"sharded planes misaligned: m_local={m_local} align={align}"
         )
-    t = m_local // tile_k
-    max_tiles = max(1, (1 << 17) // tile_k)
-    for cand in range(min(t, max_tiles), 0, -1):
+    t = m_local // align
+    max_blocks = max(1, (1 << 17) // align)
+    for cand in range(min(t, max_blocks), 0, -1):
         if t % cand == 0:
-            return cand * tile_k
-    return tile_k
+            return cand * align
+    return align
 
 
 def sharded_hint_ctr_packed(mesh: Mesh, db, seed: bytes) -> np.ndarray:
@@ -229,9 +213,9 @@ def sharded_hint_ctr_packed(mesh: Mesh, db, seed: bytes) -> np.ndarray:
     fingerprint range of A is ONE contiguous ctr word range — every shard
     generates exactly its own slice on device (never the full A slab, so
     per-chip A memory is m_local * K, not m * K) and folds it against its
-    local packed DB rows; partials psum over ICI, exact mod 2^32. Within a
-    shard the fold walks fixed-size column chunks so the slab working set
-    stays bounded at any DB size (the 2^23 x 1 kB target).
+    local packed DB rows; partials psum across devices, exact mod 2^32.
+    Within a shard the fold walks fixed-size column chunks so the slab
+    working set stays bounded at any DB size.
 
     Per-(shard, chunk) ctr block starts are computed on the host with
     exact Python integers and shipped in as a model-sharded array — no
@@ -243,15 +227,8 @@ def sharded_hint_ctr_packed(mesh: Mesh, db, seed: bytes) -> np.ndarray:
     model = mesh.shape["model"]
     m_pad = db.lo.shape[0]
     m_local = m_pad // model
-    # chunk size: whole tiles, ~<= 2^17 rows, and dividing m_local EXACTLY
-    # (the fold slices fixed cc-row windows at j*cc — an overhang would
-    # re-read rows, a non-tile-multiple cc would silently drop cc % tile_k
-    # rows from the Pallas grid). m_pad is model*tile_k-aligned
-    # (build_sharded_pallas_db), so m_local = t * tile_k; pick the largest
-    # divisor of t whose chunk stays within the target (q=1 always works).
-    cc = _sharded_chunk_rows(m_local, db.tile_k)
+    cc = _sharded_chunk_rows(m_local, respond_pallas.ROW_ALIGN)
     n_chunks = m_local // cc
-    interp = jax.default_backend() == "cpu"
 
     def body(seed_words, blk0_local, off_local, j0, lo, hi):
         slab = prg_jax.rows_from_blocks(
@@ -264,9 +241,8 @@ def sharded_hint_ctr_packed(mesh: Mesh, db, seed: bytes) -> np.ndarray:
             if hi is not None
             else None
         )
-        return respond_pallas.hint_fold_partial(
-            g, lo_c, hi_c, db.mat_elem_bit_len, db.num_cols, db.tile_k, 128,
-            interp,
+        return respond_pallas.respond_packed_core(
+            g, lo_c, hi_c, db.mat_elem_bit_len, db.num_cols, path="xla"
         ).astype(jnp.int32)
 
     step = _sharded_packed_fn(

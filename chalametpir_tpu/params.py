@@ -1,4 +1,4 @@
-"""L0 protocol parameters for the TPU-native ChalametPIR framework.
+"""L0 protocol parameters for the ChalametPIR framework.
 
 Values mirror the reference constants exactly (reference:
 chalametpir_common/src/params.rs:1-17) — they are part of the wire

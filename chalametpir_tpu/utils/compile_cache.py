@@ -1,198 +1,63 @@
-"""Persistent XLA compilation cache.
+"""Persistent XLA compilation cache for the GPU programs.
 
-The heavy device programs here (the Pallas Keccak PRG, the packed
-respond kernel) cost seconds-to-tens-of-seconds to compile but are
-byte-stable across processes, so a serving deployment should only ever
-pay that once per machine. JAX ships a content-addressed persistent
-cache; this module turns it on with sane defaults the first time any
-device path runs.
+The device programs here (the packed respond scan, the ctr Keccak, the
+hint folds) take seconds to compile but are byte-stable across
+processes, so the persistent cache makes a restart skip the compiles.
 
-NOTE — documented process-global side effects (also disableable): the
-first Server.setup/Client.setup on a device sets three JAX config knobs
-for the whole process: the persistent cache dir, the min-compile-time /
-min-entry-size thresholds, and
+Where it lives:
+
+* `JAX_COMPILATION_CACHE_DIR`, if set — JAX reads that variable itself,
+  and this module then sets no other directory;
+* otherwise `.jax_cache/` at the root of the checkout, a fixed path (the
+  cache is keyed by path, so a directory that moves never hits), listed
+  in `.gitignore`.
+
+The cache is turned on for the GPU platform only. CPU runs (the test
+tier) compile small programs, and a reloaded XLA:CPU artifact prints a
+multi-KB feature-mismatch error line on every load.
+
+Besides the directory, the first device setup sets two process-global
+knobs: the min-compile-time / min-entry-size thresholds, and
 `jax_include_full_tracebacks_in_locations=False` (full tracebacks bake
-caller source locations into Pallas/Mosaic kernel payloads, making the
-cache key change on ANY caller edit — measured as fresh multi-minute
-remote compiles before this was traced down). Embedding applications
-that need different settings should either set them after the first
-setup call or opt out entirely.
-
-The default cache path embeds a machine fingerprint (CPU ISA + JAX
-version + backend), so AOT artifacts compiled on a different host are
-never loaded with a different ISA.
-
-Why the cpu_aot_loader "could lead to execution errors such as SIGILL"
-error lines are suppressed (see _suppress_benign_aot_warnings): the
-warning fires even for a SAME-MACHINE compile->reload (verified: one
-process compiles into a fresh cache dir, a second process on the same
-host reloads, warning appears). The diff it reports is exclusively LLVM
-*tuning preferences* (+prefer-no-gather, +prefer-no-scatter) and
-negative (-feature) entries, which XLA records at compile time but the
-loader's host-feature probe never reports; every positive ISA feature
-(avx512*, amx-*, ...) in the compiled artifact is present on the host.
-Loads are therefore safe — no instruction outside the host ISA can be
-emitted from a feature set whose positive entries all match — and the
-multi-KB error line (dozens of repeats per `make check`/dryrun) only
-buries real errors. The filter drops exactly those lines at the fd
-level and forwards everything else; CHALAMETPIR_KEEP_AOT_WARNINGS=1
-keeps them. The filter is only installed for the DEFAULT cache dir —
-the benignity argument depends on its machine fingerprint; a
-user-supplied CHALAMETPIR_COMPILE_CACHE_DIR may be shared across
-heterogeneous hosts where the warning can be genuine, so it is never
-filtered there.
-
-Opt out with CHALAMETPIR_NO_COMPILE_CACHE=1 or point the cache somewhere
-else with CHALAMETPIR_COMPILE_CACHE_DIR.
+caller source locations into kernel payloads, so the cache key would
+change on ANY caller edit). Opt out with CHALAMETPIR_NO_COMPILE_CACHE=1.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
-import platform
 
 _DONE = False
-_FILTER_INSTALLED = False
 
-# substrings unique to the known-benign XLA:CPU AOT feature-mismatch
-# error line (xla cpu_aot_loader.cc:210) — nothing else in the stack
-# prints these
-_BENIGN_TOKENS = (b"cpu_aot_loader", b"execution errors such as SIGILL")
-
-
-def _suppress_benign_aot_warnings() -> None:
-    """Filter the known-benign cpu_aot_loader feature-mismatch error from
-    fd 2 (it is emitted by C++ glog, below Python's logging). A pump
-    thread forwards every other line verbatim; an atexit hook restores
-    the real stderr and drains the pipe so no output is ever lost."""
-    global _FILTER_INSTALLED
-    if _FILTER_INSTALLED or os.environ.get(
-        "CHALAMETPIR_KEEP_AOT_WARNINGS", ""
-    ) not in ("", "0"):
-        _FILTER_INSTALLED = True
-        return
-    _FILTER_INSTALLED = True
-    import atexit
-    import threading
-
-    try:
-        orig = os.dup(2)
-        r, w = os.pipe()
-        os.dup2(w, 2)
-        os.close(w)
-    except OSError:  # pragma: no cover - no fd 2 (daemonized)
-        return
-
-    def write_all(data: bytes) -> None:
-        # the real stderr can be a non-blocking PTY under a test harness:
-        # EAGAIN is transient backpressure, not a dead fd — retry, never
-        # let one full buffer kill the pump and orphan fd 2
-        import time as _time
-
-        while data:
-            try:
-                data = data[os.write(orig, data):]
-            except BlockingIOError:
-                _time.sleep(0.01)
-
-    def pump():
-        buf = b""
-        try:
-            while True:
-                chunk = os.read(r, 65536)
-                if not chunk:
-                    break
-                buf += chunk
-                *lines, buf = buf.split(b"\n")
-                for ln in lines:
-                    if not any(t in ln for t in _BENIGN_TOKENS):
-                        write_all(ln + b"\n")
-                if len(buf) > (1 << 20):  # pathological unterminated line
-                    write_all(buf)
-                    buf = b""
-        except OSError:  # pragma: no cover - orig closed at teardown
-            # the pump can no longer forward: put the real stderr back so
-            # the process's later writes to fd 2 don't hit a reader-less
-            # pipe (EPIPE on every print would crash serving)
-            try:
-                os.dup2(orig, 2)
-            except OSError:
-                pass
-        finally:
-            if buf:
-                try:
-                    write_all(buf)
-                except OSError:
-                    pass
-            os.close(r)
-
-    t = threading.Thread(target=pump, daemon=True, name="aot-warning-filter")
-    t.start()
-
-    def restore():
-        # put the real stderr back; closing the pipe's last writer EOFs
-        # the pump, which drains and exits before we return
-        try:
-            os.dup2(orig, 2)
-        except OSError:  # pragma: no cover
-            pass
-        t.join(timeout=5)
-
-    atexit.register(restore)
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def _machine_fingerprint() -> str:
-    """Short digest of everything that makes compiled artifacts
-    host-specific: CPU flags (ISA features), JAX version, backend."""
-    parts = [platform.machine(), platform.processor() or ""]
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("flags"):
-                    parts.append(line.strip())
-                    break
-    except OSError:
-        pass
-    try:
-        import jax
-
-        parts.append(jax.__version__)
-        parts.append(jax.default_backend())
-    except Exception:
-        pass
-    return hashlib.sha256("|".join(parts).encode()).hexdigest()[:12]
+def cache_dir() -> str:
+    """The directory the persistent cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
 
 
 def enable_compile_cache() -> None:
-    """Idempotently enable JAX's persistent compilation cache."""
+    """Idempotently enable JAX's persistent compilation cache (GPU only)."""
     global _DONE
-    if _DONE or os.environ.get("CHALAMETPIR_NO_COMPILE_CACHE", "") not in ("", "0"):
-        _DONE = True
+    if _DONE:
         return
     _DONE = True
-    custom_dir = os.environ.get("CHALAMETPIR_COMPILE_CACHE_DIR")
-    if not custom_dir:
-        # the benignity argument below relies on the DEFAULT cache path
-        # embedding the machine fingerprint (artifacts from a different
-        # ISA are never even looked up). A user-supplied dir may be
-        # shared across heterogeneous hosts, where the loader's SIGILL
-        # warning can be the real thing — never filter it there.
-        _suppress_benign_aot_warnings()
-    try:
-        import jax
+    if os.environ.get("CHALAMETPIR_NO_COMPILE_CACHE", "") not in ("", "0"):
+        return
+    import jax
 
-        cache_dir = custom_dir or os.path.join(
-            os.path.expanduser("~"),
-            ".cache",
-            "chalametpir_tpu",
-            f"xla_cache_{_machine_fingerprint()}",
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # cache everything that took measurable compile time
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        jax.config.update("jax_include_full_tracebacks_in_locations", False)
-    except Exception:  # pragma: no cover - never let caching break serving
-        pass
+    from ..ops import backend
+
+    if backend.platform() != "gpu":
+        return
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    # cache everything that took measurable compile time
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    jax.config.update("jax_include_full_tracebacks_in_locations", False)

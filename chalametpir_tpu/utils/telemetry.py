@@ -77,7 +77,7 @@ def trace_event(name: str, **fields) -> None:
 
 @contextlib.contextmanager
 def profile_to(logdir: str):
-    """JAX profiler trace around a block (TPU kernel timeline,
+    """JAX profiler trace around a block (device kernel timeline,
     TensorBoard-loadable). Non-fatal: a backend that cannot trace logs
     the failure and runs the block unprofiled rather than killing the
     measurement it wraps."""
@@ -97,3 +97,36 @@ def profile_to(logdir: str):
                 jax.profiler.stop_trace()
             except Exception as e:  # pragma: no cover
                 print(f"[trace] profiler stop failed: {e!r}", file=sys.stderr)
+
+
+def nvidia_smi_name_and_power_limit() -> str | None:
+    """`nvidia-smi --query-gpu=name,power.limit` for every card, one
+    "name, limit" entry per card joined by "; ", or None without
+    nvidia-smi. A card set below its maximum power runs slower under
+    load, so every recorded time carries this beside it."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if out.returncode != 0:
+        return None
+    return "; ".join(ln.strip() for ln in out.stdout.splitlines() if ln.strip())
+
+
+def device_info() -> dict:
+    """The device a measurement ran on: JAX's platform, device kind and
+    device count, and the nvidia-smi name and power limit."""
+    import jax
+
+    devices = jax.devices()
+    return {
+        "platform": devices[0].platform,
+        "kind": devices[0].device_kind,
+        "count": len(devices),
+        "nvidia_smi": nvidia_smi_name_and_power_limit(),
+    }

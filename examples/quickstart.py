@@ -2,7 +2,7 @@
 
     python examples/quickstart.py [--entries 2000] [--prg-mode ctr]
 
-Uses whatever backend jax finds (TPU if present, else CPU); pass
+Uses whatever backend jax finds (GPU if present, else CPU); pass
 --cpu to force the CPU backend. Mirrors the README snippet with timing
 prints; the reference's equivalent flow is test_pir.rs:13-86.
 """
@@ -21,7 +21,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--entries", type=int, default=2000)
     ap.add_argument("--prg-mode", default="ctr", choices=("ctr", "stream"),
-                    help="ctr = TPU-native; stream = reference-interop")
+                    help="ctr = A generated on device; stream = reference-interop")
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
     ap.add_argument("--pool", type=int, default=4,
                     help="FrodoPIR offline query preprocessing depth")

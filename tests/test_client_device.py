@@ -1,4 +1,4 @@
-"""Device-resident client engine: s . A on the MXU, exact vs host path."""
+"""Device-resident client engine: s . A as int8 products, exact vs host path."""
 
 import numpy as np
 import pytest
@@ -72,8 +72,8 @@ def test_query_batch_round_trip(device, rng):
 
 
 def test_streaming_engine_matvec_exact(rng):
-    """The O(chunk)-HBM streaming engine (for m past one chip's plane
-    budget) matches the host matvec exactly, including a ragged last
+    """The O(chunk)-memory streaming engine (for m past the device's
+    plane budget) matches the host matvec exactly, including a ragged last
     chunk and batches."""
     m = 700  # not a multiple of the step
     seed = rng.bytes(32)
@@ -112,9 +112,10 @@ def test_streaming_engine_client_round_trip(rng):
 
 
 def test_auto_routes_big_m_to_streaming_engine(rng, monkeypatch):
-    """Past the resident-plane HBM budget, auto setup must pick the
-    streaming engine instead of trying (and failing) to materialise A."""
-    import chalametpir_tpu.models.client as mc
+    """Past the resident-plane device memory budget, auto setup must pick
+    the streaming engine instead of trying (and failing) to materialise A.
+    The budget comes from the device's memory_stats()."""
+    from chalametpir_tpu.ops import backend
 
     db = generate_random_kv_database(200, rng=rng, value_byte_len=(1, 32))
     seed = rng.bytes(32)
@@ -132,8 +133,66 @@ def test_auto_routes_big_m_to_streaming_engine(rng, monkeypatch):
     monkeypatch.setattr(
         DeviceQueryEngine, "streaming_from_seed_ctr", classmethod(spy)
     )
-    monkeypatch.setattr(mc, "_accelerator_present", lambda: True)
-    # pretend the planes would blow the budget regardless of actual m
-    monkeypatch.setattr(mc, "RESIDENT_PLANES_MAX_BYTES", 0)
+    monkeypatch.setattr(backend, "accelerator_present", lambda: True)
+    # a device with 1 MB free: far below 4 * m * K_PAD bytes of planes
+    monkeypatch.setattr(
+        backend, "_memory_stats",
+        lambda: {"bytes_limit": 3 << 20, "bytes_in_use": 1 << 20},
+    )
     client = Client.setup(seed, hint, fparams, prg_mode="ctr", device="auto")
     assert "streaming_m" in calls and client.uses_device
+
+
+@pytest.mark.parametrize(
+    "stats,want",
+    [
+        (None, None),
+        ({}, None),
+        ({"bytes_limit": 1000}, 500),
+        ({"bytes_limit": 1000, "bytes_in_use": 200}, 400),
+        ({"bytes_limit": 80 << 30, "bytes_in_use": 2 << 30}, 39 << 30),
+    ],
+)
+def test_device_memory_budget_from_memory_stats(stats, want, monkeypatch):
+    """Half of the device memory not yet in use; None where the backend
+    keeps no statistics (host memory)."""
+    from chalametpir_tpu.ops import backend
+
+    monkeypatch.setattr(backend, "_memory_stats", lambda: stats)
+    assert backend.device_memory_budget() == want
+
+
+def test_resident_planes_fit_budget_at_headline_size(monkeypatch, rng):
+    """At 2^20 entries the resident planes (about 8.4 GB) stay resident on
+    an 80 GB card serving the 1.4 GB packed DB: the budget check routes to
+    from_seed_ctr, not the streaming engine."""
+    from chalametpir_tpu.core.filter import filter_geometry
+    from chalametpir_tpu.ops import backend
+    from chalametpir_tpu.ops.client_device import K_PAD
+
+    _, _, m = filter_geometry(3, 1 << 20)
+    monkeypatch.setattr(
+        backend, "_memory_stats",
+        lambda: {"bytes_limit": 60 << 30, "bytes_in_use": 3 << 29},
+    )
+    assert 4 * m * K_PAD < backend.device_memory_budget()
+
+
+def test_device_failure_raises_under_auto(rng, monkeypatch):
+    """device="auto" on a GPU must not hide a device failure behind the
+    host engine: the error reaches the caller."""
+    from chalametpir_tpu.ops import backend
+
+    db = generate_random_kv_database(100, rng=rng, value_byte_len=(1, 16))
+    seed = rng.bytes(32)
+    _, hint, fparams = Server.setup(
+        seed, db, arity=3, backend="numpy", prg_mode="ctr", rng=rng
+    )
+
+    def boom(cls, seed, m, cols_per_step=32768):
+        raise RuntimeError("device out of memory")
+
+    monkeypatch.setattr(backend, "accelerator_present", lambda: True)
+    monkeypatch.setattr(DeviceQueryEngine, "from_seed_ctr", classmethod(boom))
+    with pytest.raises(RuntimeError, match="out of memory"):
+        Client.setup(seed, hint, fparams, prg_mode="ctr", device="auto")

@@ -63,7 +63,7 @@ def test_seed_to_a_stream_prefix():
 
 
 def test_seed_to_a_ctr_prefix():
-    """ctr-mode A prefix: the TPU-native derivation is its own frozen spec
+    """ctr-mode A prefix: the device-side derivation is its own frozen spec
     (host and device generators are asserted equal elsewhere). Layout v2:
     fingerprint-major — A[r, c] is ctr stream word c*rows + r."""
     a = prg.expand_seed(2, 32, SEED, mode="ctr")

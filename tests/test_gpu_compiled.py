@@ -1,50 +1,104 @@
-"""Compiled-mode kernel assertions on real TPU hardware.
+"""Compiled-mode assertions on a GPU (the chip test tier).
 
-The default suite forces the CPU backend, where every Pallas kernel runs
-through the interpreter; a Mosaic-compiled kernel can diverge from the
-interpreter, so this tier re-runs the exactness assertions compiled.
-`make check-tpu` (PIR_TEST_TPU=1 pytest -m tpu) — the analogue of the
-reference CI running its suite under `--features gpu`
-(test_ci.yml:36-48).
+The default suite forces the CPU backend, where the Triton scan runs
+through the Pallas interpreter; a compiled kernel can diverge from the
+interpreter, so this tier re-runs the exactness assertions compiled, at
+small sizes and at the real 2^20 widths. Run on a machine with a GPU:
 
-Sizes are kept small; the compile cache (utils/compile_cache.py) makes
-repeat runs cheap.
+    make check-gpu        # = PIR_TEST_GPU=1 pytest tests/ -m gpu
+
+Whether a GPU is present is decided in the module fixture below: every
+test here skips on the CPU.
 """
 
 import numpy as np
 import pytest
 
-import jax
+pytestmark = pytest.mark.gpu
 
-pytestmark = pytest.mark.tpu
+PATHS = ("triton", "xla")
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _require_tpu():
-    if jax.default_backend() == "cpu":
-        pytest.skip("no accelerator backend present")
+def _require_gpu():
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU: run `make check-gpu` (PIR_TEST_GPU=1 -m gpu)")
     from chalametpir_tpu.utils.compile_cache import enable_compile_cache
 
     enable_compile_cache()
 
 
-def test_respond_packed_compiled_exact(rng):
-    """Compiled packed respond vs the uint64 numpy oracle, both plane
-    regimes (lo-only b=8, hi-packed b=10)."""
+def _oracle(q, mat):
+    return (q.astype(np.uint64) @ mat.astype(np.uint64)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("b", [8, 9, 10, 12])
+def test_respond_packed_compiled_exact(b, path, rng):
+    """Compiled packed respond vs the uint64 numpy oracle in every plane
+    regime (lo-only b=8, packed hi b=9/10/12)."""
+    import jax
+
     from chalametpir_tpu.ops import respond_pallas
 
-    for b in (8, 10):
-        m, c = 4096, 96
-        mat = rng.integers(0, 1 << b, size=(m, c), dtype=np.uint16)
+    m, c = 5000, 150
+    mat = rng.integers(0, 1 << b, size=(m, c), dtype=np.uint16)
+    db = respond_pallas.build_pallas_db(mat, b)
+    for q in (1, 3, 20):
+        queries = rng.integers(0, 1 << 32, size=(q, m), dtype=np.uint32)
+        out = np.asarray(
+            respond_pallas.respond_batch_packed(jax.device_put(queries), db, path=path)
+        )
+        assert np.array_equal(out, _oracle(queries, mat)), f"b={b} Q={q}"
+
+
+@pytest.mark.parametrize("path", PATHS + ("digit2",))
+def test_respond_int32_wrap_compiled(path):
+    """All-max values x all -128 digits over m > 2^18 rows: every int32
+    accumulator passes 2^31 and must wrap exactly mod 2^32."""
+    import chip_smoke
+    import jax
+
+    from chalametpir_tpu.ops import digits, respond, respond_pallas
+
+    m, c, b = 300_000, 256, 9
+    mat = np.full((m, c), (1 << b) - 1, np.uint16)
+    queries = chip_smoke.extreme_queries(2, m)
+    if path == "digit2":
+        d0, d1 = digits.db_digit_planes_np(mat)
+        got = respond.respond_batch(jax.device_put(queries), d0, d1)
+    else:
         db = respond_pallas.build_pallas_db(mat, b)
-        q = rng.integers(0, 1 << 32, size=(3, m), dtype=np.uint32)
-        out = np.asarray(respond_pallas.respond_batch_packed(jax.device_put(q), db, interpret=False))
-        want = (q.astype(np.uint64) @ mat.astype(np.uint64)).astype(np.uint32)
-        assert np.array_equal(out, want), f"compiled respond mismatch at b={b}"
+        got = respond_pallas.respond_batch_packed(queries, db, path=path)
+    assert np.array_equal(np.asarray(got), _oracle(queries, mat))
+
+
+def test_respond_real_width_compiled(rng):
+    """Both respond paths at the 2^20 x 1 kB headline geometry (b = 9),
+    all m rows against the oracle on 32 columns."""
+    import jax
+
+    from chalametpir_tpu.core import codec
+    from chalametpir_tpu.core.filter import filter_geometry
+    from chalametpir_tpu.ops import respond_pallas
+
+    _, _, m = filter_geometry(3, 1 << 20)
+    b = 9
+    cols = codec.encoded_row_width(1024, b)
+    mat = rng.integers(0, 1 << b, size=(m, cols), dtype=np.uint16)
+    db = respond_pallas.build_pallas_db(mat, b)
+    for q in (1, 16, 64):
+        queries = rng.integers(0, 1 << 32, size=(q, m), dtype=np.uint32)
+        want = _oracle(queries, mat[:, :32])
+        for path in PATHS:
+            out = respond_pallas.respond_batch_packed(jax.device_put(queries), db, path=path)
+            assert np.array_equal(np.asarray(out)[:, :32], want), f"{path} Q={q}"
 
 
 def test_ctr_prg_compiled_matches_host(rng):
-    """Compiled Pallas Keccak ctr generator vs the host XOF."""
+    """Device ctr Keccak vs the host XOF, near zero and past 2^32 blocks."""
     from chalametpir_tpu.core import prg
     from chalametpir_tpu.ops import prg_jax
     from chalametpir_tpu.params import LWE_DIMENSION
@@ -56,10 +110,13 @@ def test_ctr_prg_compiled_matches_host(rng):
     assert np.array_equal(slab.T, a)
     part = np.asarray(prg_jax.expand_fp_slab_device(sw, 37, 11, LWE_DIMENSION))
     assert np.array_equal(part.T, a[:, 37:48])
+    far = np.asarray(prg_jax.expand_fp_slab_device(sw, 1 << 27, 64, LWE_DIMENSION))
+    assert np.array_equal(far, prg.expand_fp_block(LWE_DIMENSION, 1 << 27, 64, seed))
 
 
 def test_client_device_matvec_compiled_exact(rng):
-    """Compiled device client engine (both layouts) vs host math."""
+    """Compiled device client engine (ctr and stream construction) vs
+    host math."""
     from chalametpir_tpu.core import prg
     from chalametpir_tpu.ops.client_device import DeviceQueryEngine
     from chalametpir_tpu.params import LWE_DIMENSION
@@ -81,7 +138,7 @@ def test_client_device_matvec_compiled_exact(rng):
 
 
 def test_pipelined_setup_compiled_round_trip(rng):
-    """Full pipelined ctr setup + pooled client + respond on hardware,
+    """Full pipelined ctr setup + pooled client + respond on the GPU,
     hint checked byte-identical against the numpy oracle."""
     from chalametpir_tpu import Client, Server
     from chalametpir_tpu.errors import ArithmeticOverflowAddingQueryIndicator
@@ -97,6 +154,7 @@ def test_pipelined_setup_compiled_round_trip(rng):
     )
     assert hint == hint_np and fparams == fp_np
     client = Client.setup(seed, hint, fparams, prg_mode="ctr", prepared_queries=2)
+    assert client.uses_device
     for key in list(db.keys())[:2]:
         while True:
             try:
@@ -107,42 +165,32 @@ def test_pipelined_setup_compiled_round_trip(rng):
         assert client.process_response(key, server.respond(q)) == db[key]
 
 
-def test_pipelined_setup_multichunk_buffer_reuse_compiled(rng):
-    """Force a multi-chunk pipeline ON HARDWARE so the round-robin
-    pack-buffer reuse (reuse_bufs — accelerator-only; the CPU backend
+def test_pipelined_setup_multichunk_buffer_reuse_compiled(rng, monkeypatch):
+    """Force a multi-chunk pipeline ON THE GPU so the round-robin
+    pack-buffer reuse (reuse_bufs — accelerator-only; the CPU backend's
     device_put can zero-copy alias host buffers, so the CPU-tier sibling
     in test_setup_pipeline.py necessarily runs the fresh-buffer path)
     actually cycles: chunks 3+ rewrite a host buffer a prior device_put
     read from, guarded only by block_until_ready on the arrays produced
-    from it. Hint must stay byte-identical to the numpy oracle.
-
-    Manual set/restore instead of the monkeypatch fixture: bench's
-    run_check_tpu drives these functions as fn(rng) outside pytest."""
+    from it. Hint must stay byte-identical to the numpy oracle."""
     from chalametpir_tpu import Server
+    from chalametpir_tpu.core.filter import filter_geometry
     from chalametpir_tpu.models import server as server_mod
     from chalametpir_tpu.utils import generate_random_kv_database
 
-    saved = server_mod._CTR_CHUNK_COLS
-    server_mod._CTR_CHUNK_COLS = 512
-    try:
-        db = generate_random_kv_database(8192, rng=rng, value_byte_len=(1, 64))
-        seed = rng.bytes(32)
-        server_jax, hint_jax, fp_jax = Server.setup(
-            seed, db, arity=3, backend="jax", prg_mode="ctr",
-            rng=np.random.default_rng(11),
-        )
-        from chalametpir_tpu.core.filter import filter_geometry
-        from chalametpir_tpu.ops import respond_pallas
-
-        _, _, num_fp = filter_geometry(3, len(db))
-        assert -(-num_fp // server_mod._ctr_chunk_cols(
-            num_fp, respond_pallas.DEFAULT_TILE_K)) >= 3
-        server_np, hint_np, fp_np = Server.setup(
-            seed, db, arity=3, backend="numpy", prg_mode="ctr",
-            rng=np.random.default_rng(11),
-        )
-    finally:
-        server_mod._CTR_CHUNK_COLS = saved
+    monkeypatch.setattr(server_mod, "_CTR_CHUNK_COLS", 2048)
+    db = generate_random_kv_database(8192, rng=rng, value_byte_len=(1, 64))
+    seed = rng.bytes(32)
+    server_jax, hint_jax, fp_jax = Server.setup(
+        seed, db, arity=3, backend="jax", prg_mode="ctr",
+        rng=np.random.default_rng(11),
+    )
+    _, _, num_fp = filter_geometry(3, len(db))
+    assert -(-num_fp // server_mod._ctr_chunk_cols(num_fp)) >= 3
+    server_np, hint_np, fp_np = Server.setup(
+        seed, db, arity=3, backend="numpy", prg_mode="ctr",
+        rng=np.random.default_rng(11),
+    )
     assert fp_jax == fp_np
     assert hint_jax == hint_np
     q = np.random.default_rng(3).integers(
@@ -152,8 +200,10 @@ def test_pipelined_setup_multichunk_buffer_reuse_compiled(rng):
 
 
 def test_sharded_ctr_hint_single_device_mesh(rng):
-    """The shard_map ctr hint path compiled on the real backend (a 1x1
-    mesh on one chip — the collective structure still runs)."""
+    """The shard_map ctr hint path compiled on the GPU (a 1x1 mesh on one
+    card — the collective structure still runs)."""
+    import jax
+
     from chalametpir_tpu.core import prg
     from chalametpir_tpu.parallel import (
         build_sharded_pallas_db,
@@ -162,8 +212,6 @@ def test_sharded_ctr_hint_single_device_mesh(rng):
     )
     from chalametpir_tpu.params import LWE_DIMENSION
 
-    if len(jax.devices()) < 1:
-        pytest.skip("no devices")
     mesh = make_mesh(devices=jax.devices()[:1], data=1, model=1)
     m, c, b = 700, 40, 8
     mat = rng.integers(0, 1 << b, size=(m, c), dtype=np.uint16)
@@ -171,14 +219,14 @@ def test_sharded_ctr_hint_single_device_mesh(rng):
     db = build_sharded_pallas_db(mesh, mat, b)
     hint = sharded_hint_ctr_packed(mesh, db, seed)
     a = prg.expand_seed(LWE_DIMENSION, m, seed, mode="ctr")
-    want = (a.astype(np.uint64) @ mat.astype(np.uint64)).astype(np.uint32)
-    assert np.array_equal(hint[:, :c], want)
+    assert np.array_equal(hint[:, :c], _oracle(a, mat))
 
 
 def test_sharded_respond_single_device_mesh(rng):
-    """The shard_map packed respond path compiled on the real backend
-    (1x1 mesh — the collective structure still runs), exact vs the
-    uint64 oracle."""
+    """The shard_map packed respond path compiled on the GPU (1x1 mesh),
+    exact vs the uint64 oracle."""
+    import jax
+
     from chalametpir_tpu.parallel import (
         build_sharded_pallas_db,
         make_mesh,
@@ -194,14 +242,12 @@ def test_sharded_respond_single_device_mesh(rng):
     q = rng.integers(0, 1 << 32, size=(2, m), dtype=np.uint32)
     q_pad = np.pad(q, ((0, 0), (0, m_pad - m)))
     out = np.asarray(respond(q_pad))[:, :c]
-    want = (q.astype(np.uint64) @ mat.astype(np.uint64)).astype(np.uint32)
-    assert np.array_equal(out, want)
+    assert np.array_equal(out, _oracle(q, mat))
 
 
 def test_tcp_round_trip_compiled(rng):
-    """The TCP pair served by a compiled device respond path (C13 on
-    real hardware — the CPU-mesh suite runs it through the Pallas
-    interpreter only)."""
+    """The TCP pair served by the compiled device respond path, with the
+    device client in the same process."""
     import asyncio
 
     from chalametpir_tpu.models.server import Server
@@ -219,7 +265,7 @@ def test_tcp_round_trip_compiled(rng):
         port = srv.sockets[0].getsockname()[1]
         async with srv:
             return await fetch(
-                "127.0.0.1", port, [b"banana", b"kiwi"], prg_mode="ctr"
+                "127.0.0.1", port, [b"banana", b"kiwi"], prg_mode="ctr", device=True
             )
 
     results = asyncio.run(run())

@@ -1,4 +1,4 @@
-"""TurboSHAKE128 cross-implementation battery (VERDICT r4 demand #6).
+"""TurboSHAKE128 cross-implementation battery.
 
 With no Rust toolchain in this image, byte-exactness vs the reference's
 `turboshake` crate (binary_fuse_filter.rs:568-584, matrix.rs:541-558)

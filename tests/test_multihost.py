@@ -4,8 +4,8 @@ The in-process 8-device mesh tier (test_sharding.py, dryrun_multichip)
 proves the collective structure; this tier proves the multi-controller
 runtime story: two separate processes, each owning 4 virtual CPU
 devices, join via jax.distributed, build one global (1, 8) mesh, run the
-sharded ctr setup (hint psums cross the process boundary over gloo — on
-a TPU pod the identical program reduces over ICI/DCN), broadcast a
+sharded ctr setup (hint psums cross the process boundary over gloo —
+across GPU hosts the identical program reduces over NCCL), broadcast a
 client query from process 0, and answer it with a collective respond.
 The reference has no multi-node capability at all (SURVEY.md section 2),
 so this is exceed-parity surface.
@@ -119,9 +119,9 @@ def test_two_process_sharded_round_trip():
         start_new_session=True,
     )
     try:
-        # generous: ~45 s on a quiet host, but a contended 1-core host has
-        # been observed to run the whole suite 3.5x slower, and two
-        # processes compiling the sharded program time-share that core
+        # generous: ~45 s on a quiet host, but a contended host can run
+        # several times slower, and two processes compiling the sharded
+        # program time-share its cores
         out, err = proc.communicate(timeout=460)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)

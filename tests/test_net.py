@@ -155,8 +155,8 @@ def test_batch_dispatcher_coalesces_concurrent_queries(rng):
 
 def test_batch_dispatcher_pads_to_one_compiled_shape(rng):
     """pad_batches=True must stack every device batch to exactly max_batch
-    rows (one compiled shape on hardware — micro-batch sizes vary with
-    queue luck and would otherwise each pay a remote compile) while the
+    rows (one compiled shape on the device — micro-batch sizes vary with
+    queue luck and would otherwise each pay a compile) while the
     per-query responses stay exact."""
     from chalametpir_tpu.models.client import Client
     from chalametpir_tpu.net.server import BatchDispatcher
@@ -383,3 +383,22 @@ def test_batch_dispatcher_aclose_quiesces(rng):
 
     asyncio.run(run())
     assert sum(calls) == 1  # nothing ran after the quiesce
+
+
+@pytest.mark.parametrize("argv,want", [([], False), (["--device", "host"], False),
+                                       (["--device", "gpu"], True)])
+def test_client_cli_device_option(argv, want, monkeypatch, capsys):
+    """The TCP client keeps A on the host unless --device gpu: a second
+    JAX process on a server's card would find its memory reserved."""
+    from chalametpir_tpu.net import client as net_client
+
+    seen = {}
+
+    async def fake_fetch(host, port, keys, prg_mode, device, pool):
+        seen["device"] = device
+        return {k: b"v" for k in keys}
+
+    monkeypatch.setattr(net_client, "fetch", fake_fetch)
+    net_client.main(["--key", "banana"] + argv)
+    assert seen["device"] is want
+    assert "banana: v" in capsys.readouterr().out

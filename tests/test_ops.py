@@ -1,4 +1,4 @@
-"""Device ops: balanced-digit recode and exact mod-2^32 MXU matmuls."""
+"""Device ops: balanced-digit recode and exact mod-2^32 int8 matmuls."""
 
 import numpy as np
 import pytest

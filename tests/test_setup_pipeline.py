@@ -56,22 +56,22 @@ def test_pipelined_setup_round_trip(rng):
 
 
 def test_ctr_chunk_cols_even_division():
-    """Chunks divide m evenly (waste < one tile per chunk) — a fixed 2^17
-    chunk shipped up to 25% pure padding through the host link at
-    2^18/arity-3-like geometries."""
+    """Chunks divide m evenly (waste < one row block per chunk) — a fixed
+    2^17 chunk copied up to 25% pure padding at 2^18/arity-3-like
+    geometries."""
     from chalametpir_tpu.models.server import _CTR_CHUNK_COLS, _ctr_chunk_cols
+    from chalametpir_tpu.ops.respond_pallas import ROW_ALIGN
 
-    tile_k = 2048
     for m in (1, 2048, 74752, 294912, 302173, 1048576, 1179648, 2359296):
-        cc = _ctr_chunk_cols(m, tile_k)
-        assert cc % tile_k == 0
+        cc = _ctr_chunk_cols(m)
+        assert cc % ROW_ALIGN == 0
         n_chunks = -(-m // cc)
         m_pad = n_chunks * cc
         assert m_pad >= m
-        # padding bounded by one tile per chunk (plus tile rounding of cc)
-        assert m_pad - m < n_chunks * tile_k + tile_k
-        # chunks stay near the 2^17 target, never above one tile over it
-        assert cc <= _CTR_CHUNK_COLS + tile_k
+        # padding bounded by one block per chunk (plus block rounding of cc)
+        assert m_pad - m < n_chunks * ROW_ALIGN + ROW_ALIGN
+        # chunks stay near the 2^17 target, never above one block over it
+        assert cc <= _CTR_CHUNK_COLS + ROW_ALIGN
 
 
 def test_pipelined_setup_multichunk_buffer_reuse(rng, monkeypatch):
@@ -80,9 +80,9 @@ def test_pipelined_setup_multichunk_buffer_reuse(rng, monkeypatch):
     (device_put can zero-copy alias host buffers there), so this tier
     exercises the multi-chunk pipeline with fresh buffers; the reuse
     path itself — chunks 3+ rewriting a buffer a prior device_put read
-    from — only runs on accelerators and is guarded by the hardware-tier
-    sibling (test_tpu_compiled.test_pipelined_setup_multichunk_buffer_
-    reuse_compiled)."""
+    from — only runs on the GPU and is guarded by the chip-tier sibling
+    (test_gpu_compiled.test_pipelined_setup_multichunk_buffer_reuse_
+    compiled)."""
     from chalametpir_tpu.models import server as server_mod
 
     monkeypatch.setattr(server_mod, "_CTR_CHUNK_COLS", 512)
@@ -95,11 +95,9 @@ def test_pipelined_setup_multichunk_buffer_reuse(rng, monkeypatch):
     assert server_jax._layout == "packed"
     # the forced chunk size must actually have produced several chunks
     from chalametpir_tpu.core.filter import filter_geometry
-    from chalametpir_tpu.ops import respond_pallas
 
     _, _, num_fp = filter_geometry(3, len(db))
-    assert -(-num_fp // server_mod._ctr_chunk_cols(
-        num_fp, respond_pallas.DEFAULT_TILE_K)) >= 3
+    assert -(-num_fp // server_mod._ctr_chunk_cols(num_fp)) >= 3
     server_np, hint_np, fp_np = Server.setup(
         seed, db, arity=3, backend="numpy", prg_mode="ctr",
         rng=np.random.default_rng(11),

@@ -175,19 +175,18 @@ def test_server_api_sharded_ctr_round_trip(mesh, rng, arity):
 
 def test_sharded_chunk_rows_always_tile_aligned_and_exact():
     """Regression: the old halving chunk picker could return a chunk that
-    was not a multiple of tile_k (e.g. m_local = 2048*130 -> 66560,
-    66560 % 2048 = 1024), and the Pallas fold grid floor-divides —
-    silently dropping rows from the hint. The picker must return a
-    tile-multiple that divides m_local exactly."""
+    was not a multiple of the row block (e.g. m_local = 2048*130 -> 66560,
+    66560 % 2048 = 1024), silently dropping rows from the hint. The
+    picker must return a block multiple that divides m_local exactly."""
     from chalametpir_tpu.parallel.sharding import _sharded_chunk_rows
 
-    tile_k = 2048
+    align = 2048
     for t in list(range(1, 400)) + [1009, 1024, 130 * 4, 197 * 3]:
-        m_local = t * tile_k
-        cc = _sharded_chunk_rows(m_local, tile_k)
-        assert cc % tile_k == 0
+        m_local = t * align
+        cc = _sharded_chunk_rows(m_local, align)
+        assert cc % align == 0
         assert m_local % cc == 0
-        assert cc <= max(1 << 17, tile_k)
+        assert cc <= max(1 << 17, align)
     # the concrete old-failure geometry
     assert _sharded_chunk_rows(266240, 2048) % 2048 == 0
     assert 266240 % _sharded_chunk_rows(266240, 2048) == 0
@@ -202,8 +201,8 @@ def test_sharded_ctr_hint_multi_chunk_matches_single_device(mesh, rng, monkeypat
     from chalametpir_tpu.parallel import sharding as sh
     from chalametpir_tpu.utils import generate_random_kv_database
 
-    # every shard folds in single-tile chunks -> m_local/tile_k chunks
-    monkeypatch.setattr(sh, "_sharded_chunk_rows", lambda m_local, tile_k: tile_k)
+    # every shard folds in single-block chunks -> m_local/align chunks
+    monkeypatch.setattr(sh, "_sharded_chunk_rows", lambda m_local, align: align)
 
     db = generate_random_kv_database(7000, rng=rng, value_byte_len=(1, 48))
     seed = rng.bytes(32)
